@@ -1,6 +1,6 @@
-"""swarm_simulator_tpu — TPU-native multi-agent trajectory planning.
+"""swarm_simulator_tpu — accelerator-native multi-agent trajectory planning.
 
-A from-scratch JAX/XLA/Pallas re-design of the RBP swarm trajectory
+A from-scratch JAX/XLA re-design of the RBP swarm trajectory
 planning pipeline (reference: qwerty35/swarm_simulator): ECBS initial path
 search, safe-flight-corridor construction over a precomputed ESDF tensor,
 and a batched Bernstein-polynomial QP solved with an OSQP-style ADMM method

@@ -58,6 +58,9 @@ def main(argv=None) -> int:
         jax.config.update("jax_enable_x64", True)
 
     import swarm_simulator_tpu as sst
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     from swarm_simulator_tpu.io.mission_json import load_mission
     from swarm_simulator_tpu.world.btree import load_bt_world
 

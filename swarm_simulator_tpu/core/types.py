@@ -75,11 +75,11 @@ class Param:
     batch_iter: int = 0
     iteration: int = 1
 
-    # --- TPU-framework extensions (no reference counterpart) ---
+    # --- framework extensions (no reference counterpart) ---
     world_resolution: float = 0.1  # occupancy voxel size (octomap res)
     esdf_max_dist: float = 1.0  # EDT clamp (swarm_traj_planner_rbp.cpp:75)
     corridor_mode: str = "rbp"  # "rbp" | "flat" (update_flat_box variant)
-    solver_dtype: str = "float32"  # "float32" on TPU, "float64" for parity
+    solver_dtype: str = "float32"  # "float32" on device, "float64" for parity
     solver_kkt: str = "auto"  # "auto" | "dense" | "cg" (see qp/admm.py)
     solver_max_iter: int = 2000
     solver_eps_abs: float = 1e-4
@@ -95,7 +95,7 @@ class Param:
     # batch_size, honors iteration as outer corridor replans
     solver: str = "admm"
     # joint-path prep modes (qp/joint.py solve_trajectories):
-    #   cold_prep: "host" (f64 prep, max polish + fused warm cycles) |
+    #   cold_prep: "host" (f64 prep, max polish, one apply/iteration) |
     #              "device" (low time-to-first-plan)
     #   replan_prep: None = auto ("device" on accelerators, "fresh" on
     #              CPU) | "fresh" | "device" | "stale"
@@ -104,8 +104,8 @@ class Param:
     #   replan_budgets: per-round phase budgets for corridor replans
     #   (None = the cold phases' FULL budgets — the production
     #   default; short schedules are explicit opt-in, see
-    #   qp/joint.REPLAN_BUDGETS_LARGE and the measured frontier in
-    #   benchmarks/replan256_chain_tpu.json)
+    #   qp/joint.REPLAN_BUDGETS_LARGE and the measured frontier of
+    #   tools/replan256_chain.py)
     replan_budgets: Optional[tuple] = None
     #   replan_polish: warm polish extensions after each replan round
     #   (None = auto, qp/joint.REPLAN_POLISH_LARGE for short-budget
@@ -114,7 +114,7 @@ class Param:
     #   polish_rounds: warm polish extensions after the cold solve
     #   (qp/joint ESCALATION_BUDGETS; x0-only updates on the resident
     #   operator) — how big swarms reach the 64-agent objective-margin
-    #   standard (benchmarks/oracle256_polish_tpu.json).  None = auto:
+    #   standard (tools/oracle256_study.py).  None = auto:
     #   qp/joint.polish_rounds_for_swarm (4 for >= 128 agents, else 0)
     polish_rounds: Optional[int] = None
     #   exact_polish: host-f64 active-set polish of the final solution

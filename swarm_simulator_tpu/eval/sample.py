@@ -38,11 +38,10 @@ def sample_trajectories(coef: jnp.ndarray, T: jnp.ndarray, t: jnp.ndarray,
     vand = jnp.stack(rows, axis=1)  # [S, R, n+1]
 
     segs = coef[:, idx]  # [N, S, n+1, 3]
-    # precision MUST be pinned: on TPU this einsum runs single-pass
-    # bf16 at default precision, corrupting the acceptance METRICS
-    # (measured on a good 64-agent solve: bf16 sampling reported
-    # continuity 3.0e-2 / ratio 0.989 where true-f32 gives 3.8e-5 /
-    # 1.008 — a gate-quality solve judged as a collision)
+    # precision MUST be pinned: at default precision the GPU may run
+    # this float32 einsum as TF32 (about three decimal digits), which
+    # corrupts the acceptance METRICS — continuity errors of 1e-2
+    # class and a gate-quality solve judged as a collision
     return jnp.einsum("srj,nsjk->nsrk", vand, segs,
                       precision=jax.lax.Precision.HIGHEST)
 

@@ -1,15 +1,16 @@
 """Multi-host (multi-process) runtime glue — the distributed backend.
 
 The reference has no distributed layer at all (single-threaded C++ node,
-SURVEY §5); the TPU-native framework scales across hosts with JAX's
-standard multi-controller SPMD model:
+SURVEY §5); this framework scales across hosts with JAX's standard
+multi-controller SPMD model:
 
   * every process calls :func:`initialize` once (jax.distributed handles
     the coordination service), then sees the GLOBAL device set;
   * :func:`global_mesh` factors all devices into the framework's
-    (scenario, batch) axes — scenario spans hosts (DCN-friendly,
-    embarrassingly parallel Monte-Carlo), batch stays intra-slice so the
-    dummy-exchange all-gather of jacobi_sweep rides ICI;
+    (scenario, batch) axes — scenario spans hosts (embarrassingly
+    parallel Monte-Carlo), batch stays within a host so the
+    dummy-exchange all-gather of jacobi_sweep rides the host's
+    device-to-device links;
   * :func:`scenario_shard` gives each process its slice of a scenario
     list, and :func:`stack_across_processes` assembles per-process QPData
     stacks into one global jax.Array without any host ever holding the
@@ -36,10 +37,10 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Bring up the multi-controller runtime (no-op when single-process).
 
-    With no arguments, defers to JAX's environment autodetection (TPU
-    pods populate coordinator/process topology automatically; on other
-    platforms set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
-    JAX_PROCESS_ID or pass them here).
+    With no arguments, defers to JAX's environment autodetection (set
+    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or
+    pass them here: a host with no cluster manager needs all three,
+    e.g. ``localhost:<port>``).
     """
     if num_processes == 1 or (
             coordinator_address is None and num_processes is None

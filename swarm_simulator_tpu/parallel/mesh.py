@@ -2,14 +2,15 @@
 
 The framework scales along:
   * ``scenario`` — independent planning problems (Monte-Carlo maps,
-    missions, replans).  Embarrassingly parallel; DCN-friendly across
-    hosts (the 50-map sweep of swarm_traj_planner_rbp_test_all.cpp as a
+    missions, replans).  Embarrassingly parallel, so it may span hosts
+    (the 50-map sweep of swarm_traj_planner_rbp_test_all.cpp as a
     batch dimension).
   * ``batch`` — the agent groups of sequential batch planning
     (rbp_planner.hpp:849-872).  Groups couple through the shared dummy
     trajectories, so each Jacobi round ends with an all-gather of the
-    refreshed dummy state over ICI — the collective form of the
-    reference's dummy write-back (rbp_planner.hpp:183).
+    refreshed dummy state — the collective form of the reference's
+    dummy write-back (rbp_planner.hpp:183).  The mesh assumes no
+    interconnect topology: every device reaches every other.
 
 Everything here is a thin layer over jit + NamedSharding: the solver
 itself (qp/admm.py) is already vmap/pjit-polymorphic.

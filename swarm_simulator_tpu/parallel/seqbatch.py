@@ -4,7 +4,7 @@ The reference solves agents in contiguous batches of ``batch_size``, holding
 all other agents fixed at their latest ``dummy`` control points
 (setBatch/build_dummy/solveQP, rbp_planner.hpp:140-204, 513-549, 849-872).
 This is a Gauss-Seidel sweep over agent groups — and the natural sharding
-axis on a TPU mesh:
+axis on a device mesh:
 
   * ``gauss-seidel``: batches solved in order, each seeing earlier batches'
     fresh solutions (reference-faithful; feasibility guaranteed after one
@@ -50,13 +50,14 @@ def solve_trajectories(
     if settings is None:
         kkt = param.solver_kkt
         if kkt == "auto":
-            # dense: one big MXU matmul per iteration — wins for small
+            # dense: one big matmul per iteration — wins for small
             # batch QPs (the CG inner loop is ~70 tiny sequential ops per
-            # iteration, latency-bound on TPU).  cg: O(D^2) memory — the
-            # only viable mode for large joint problems.  The memory that
-            # matters is the STACKED dense inverses: the device-resident
-            # sweeps hold every batch's [nx, nx] inverse in HBM at once
-            # (64 batches of 4 agents at M=72 -> 6.9 GB -> OOM on v5e).
+            # iteration, launch-latency-bound on an accelerator).  cg:
+            # O(D^2) memory — the only viable mode for large joint
+            # problems.  The memory that matters is the STACKED dense
+            # inverses: the device-resident sweeps hold every batch's
+            # [nx, nx] inverse in device memory at once (64 batches of 4
+            # agents at M=72 -> 6.9 GB).
             B_eff = param.batch_size if param.sequential else N
             n_groups = int(np.ceil(N / B_eff)) if param.sequential else 1
             nx = 3 * B_eff * plan.M * (param.n + 1)

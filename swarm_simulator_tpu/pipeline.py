@@ -1,6 +1,6 @@
 """End-to-end RBP planning pipeline.
 
-The TPU-native equivalent of the swarm_traj_planner_rbp main loop
+The JAX equivalent of the swarm_traj_planner_rbp main loop
 (src/swarm_traj_planner_rbp.cpp:69-127):
 
   occupancy world -> ESDF -> ECBS initial paths -> SFC/RSFC corridors

@@ -1,11 +1,11 @@
 """Exact active-set polish: first-order solve -> true QP optimum.
 
 The reference solves every trajectory QP to OPTIMALITY with CPLEX
-(solveQP, rbp_planner.hpp:111-206, cplex.solve() at :158); the TPU
+(solveQP, rbp_planner.hpp:111-206, cplex.solve() at :158); the device
 path's ADMM reaches the safety gate fast but approaches the optimum
-only at rate O(1/k) — the measured 256-agent replan margins (1.37 at
-800 iterations, benchmarks/replan256_chain_tpu.json) are an ITERATION
-BUDGET wall, not a precision wall (benchmarks/precision_probe_cpu.json).
+only at rate O(1/k) — the measured 256-agent replan margins
+(tools/replan256_chain.py) are an ITERATION BUDGET wall, not a
+precision wall (benchmarks/precision_probe_cpu.json).
 
 This module closes that gap the way production QP codes do (OSQP's
 "solution polishing"): the ADMM solution identifies which constraints

@@ -4,13 +4,13 @@ Replaces the reference's per-batch CPLEX solves (solveQP,
 rbp_planner.hpp:111-206) — the 95%+ runtime hot spot — with a first-order
 operator-splitting method whose every step is a fused XLA computation:
 
-  x+ = K^-1 (sigma x - q + A^T (rho.z - y))        (dense MXU matmul)
-  z+ = clip(alpha Ax+ + (1-alpha) z + y/rho, l, u) (VPU)
-  y+ = y + rho (alpha Ax+ + (1-alpha) z - z+)      (VPU)
+  x+ = K^-1 (sigma x - q + A^T (rho.z - y))        (dense matmul)
+  z+ = clip(alpha Ax+ + (1-alpha) z + y/rho, l, u) (elementwise)
+  y+ = y + rho (alpha Ax+ + (1-alpha) z - z+)      (elementwise)
 
 where K = P + sigma I + A^T diag(rho) A is formed once per problem from the
 structured blocks and inverted with a single Cholesky — O((3*B*M*(n+1))^3)
-FLOPs that the MXU eats for breakfast — after which every ADMM iteration is
+FLOPs that an accelerator's matrix units absorb easily — after which every ADMM iteration is
 one dense matmul plus elementwise work.  A and A^T are never materialized:
 they are einsums over the equality/box/pair blocks (see qp/assemble.py).
 
@@ -79,13 +79,13 @@ class SolveInfo(NamedTuple):
 
 class PairOp(NamedTuple):
     """Gather-free pair-constraint operator: selection matrix S = C_j - C_i
-    [P, B] (one-hot rows) plus per-control-point normals [P, 3, D].  TPU
-    gathers/scatter-adds are slow and shape-hostile; as matmuls the pair
-    block rides the MXU.  NOTE: the D-expanded normal layout is deliberate
-    — einsums over [..., M, n+1]-shaped intermediates leave a trailing
-    dimension of n+1=6 that TPU tiling pads to 128 (21x memory blowup,
-    measured 30x slower); the [P, 3, D] layout keeps the 128-aligned D
-    axis last."""
+    [P, B] (one-hot rows) plus per-control-point normals [P, 3, D].
+    Gathers/scatter-adds are slow and shape-hostile on an accelerator;
+    as matmuls the pair block rides the matrix units.  NOTE: the
+    D-expanded normal layout is deliberate — einsums over
+    [..., M, n+1]-shaped intermediates leave a trailing dimension of
+    n+1=6 that accelerator layouts tile poorly; the [P, 3, D] layout
+    keeps the long D axis last."""
     n_d: jnp.ndarray  # [P, 3, D] (masked)
     S: jnp.ndarray  # [P, B]
 
@@ -284,9 +284,10 @@ def _prepare(data: QPData, s: ADMMSettings):
 def solve_single(data: QPData, s: ADMMSettings) -> tuple[jnp.ndarray, SolveInfo]:
     """Solve one QP. Use jax.vmap(solve_single, ...) for batches.
 
-    Runs under matmul precision "highest": TPU lowers float32 matmuls to
-    bfloat16 passes by default, which destroys ADMM convergence (the
-    K^-1 @ rhs product needs full f32)."""
+    Runs under matmul precision "highest": at default precision the GPU
+    may run float32 matmuls as TF32 (about three decimal digits), which
+    destroys ADMM convergence (the K^-1 @ rhs product needs full
+    f32)."""
     with jax.default_matmul_precision("highest"):
         sdata, scal, op = _prepare(data, s)
         return _iterate(data, sdata, scal, op, s)

@@ -1,7 +1,7 @@
 """Trusted float64 interior-point QP solver (host CPU, numpy/scipy).
 
-Role in the framework — two jobs the first-order TPU solver cannot do for
-itself:
+Role in the framework — two jobs the first-order device solver cannot do
+for itself:
 
 1. **Parity oracle**: BASELINE.md demands coefficient sequences within
    tolerance of a high-accuracy solve.  This solver is a Mehrotra
@@ -15,7 +15,7 @@ itself:
 2. **Credible baseline denominator**: bench.py times it one-problem-at-
    a-time on the host CPU — the reference's execution architecture
    (single-threaded C++/CPLEX) with a CPLEX-class algorithm — instead of
-   comparing the TPU path against a deliberately slow copy of itself.
+   comparing the device path against a deliberately slow copy of itself.
 
 Problem (one batch QP, qp/assemble.QPData, unscaled):
 

@@ -1,37 +1,36 @@
 """Cross-device decomposition of ONE joint knot-state ADMM solve.
 
-Round-2 gap (VERDICT): the production joint solve ran single-device —
-multi-chip meant scenario replication.  This module partitions the ONE
-banded KKT solve across a device mesh axis, so the pivot inventory
-(the memory wall: ~232 MB at 64 agents, ~7.5 GB at 256 in the 5-rung
-recipe) and the O(N^2 M) pair-constraint work (the FLOPs wall at 256
-agents) are both sharded, with XLA collectives over ICI carrying the
-coupling — the TPU-native generalization of the reference's
-sequential-batch dummy exchange (rbp_planner.hpp:140-204) to the JOINT
-all-pair QP.
+This module partitions the ONE banded KKT solve across a device mesh
+axis, so the pivot inventory (the memory wall: ~232 MB at 64 agents,
+~7.5 GB at 256 in the 5-rung recipe) and the O(N^2 M) pair-constraint
+work (the FLOPs wall at 256 agents) are both sharded, with XLA
+collectives carrying the coupling — the device-mesh generalization of
+the reference's sequential-batch dummy exchange
+(rbp_planner.hpp:140-204) to the JOINT all-pair QP.  The mesh is a
+flat 1-D axis: it follows the algorithm alone, with no assumption
+about the interconnect's topology.
 
-Two decompositions of the Thomas sweeps (per mesh axis of n devices):
+Three decompositions of the Thomas sweeps (per mesh axis of n devices;
+``mode="spike"`` is described with its prep at the end of the file):
 
-``mode="chunk"`` (default, round 4) — the KNOT axis is sharded into n
+``mode="chunk"`` (default) — the KNOT axis is sharded into n
 contiguous chunks (``op.Dinvs [R, Mi_p, bs, bs]`` split on dim 1,
 zero-block padded to a multiple of n).  The sweeps flow
-device-to-device: each device runs its local chunk — THROUGH THE
-PRODUCTION STREAMING THOMAS KERNEL (ops/pallas_thomas chunk kernels)
-when the phase requests ``thomas_kernel`` on TPU, else the same XLA
-scan as the single-device path — then hands one [bs] boundary row to
+device-to-device: each device runs its local chunk with the same XLA
+scan as the single-device path, then hands one [bs] boundary row to
 its neighbor via ``ppermute``.  Collectives per KKT apply: n fwd + n
 bwd ppermutes of [bs] floats + ONE tiled all_gather of the [Mi_p/n,
 bs] solution chunks — CONSTANT in M (the block-row mode pays
 2(Mi-1) per-knot gathers).  The chain itself stays sequential (that
 is the algorithm's critical path; cyclic reduction was measured-
-rejected, see ARCHITECTURE.md), so wall-clock tracks the single-chip
-kernel speed while per-device pivot HBM drops by n and the pair-axis
-MXU work divides.  Works for ANY bs (no divisibility constraint).
+rejected, see ARCHITECTURE.md), so wall-clock tracks the single-device
+chain speed while per-device pivot memory drops by n and the pair-axis
+work divides.  Works for ANY bs (no divisibility constraint).
 
-``mode="blockrow"`` (round 3, kept) — each device holds bs/n ROWS of
-every pivot inverse; every knot's matvec is reassembled with a tiled
-all_gather.  2(Mi-1)+2 collectives per iteration of bs/n floats: on
-real ICI (~us latency) this divides the dominant HBM pivot stream n
+``mode="blockrow"`` — each device holds bs/n ROWS of every pivot
+inverse; every knot's matvec is reassembled with a tiled all_gather.
+2(Mi-1)+2 collectives per iteration of bs/n floats: with
+microsecond-latency links this divides the dominant pivot stream n
 ways and can beat the chunk mode at large bs; on the virtual CPU mesh
 the per-knot rendezvous dominates (measured inverting 2x at n=8,
 benchmarks/shard_scale_cpu.json) — which is why it is no longer the
@@ -138,12 +137,11 @@ def _specs(data: QPData, op: NSOp, axis: str, mode: str = "chunk"):
 
 
 def _iterate_ns_sharded(data: QPData, op: NSOp, s: NSSettings, axis: str,
-                        n: int = 1, mode: str = "blockrow",
-                        interpret: bool = False, init=None):
+                        n: int = 1, mode: str = "blockrow", init=None):
     """shard_map body: one phase of the knot-state ADMM with LOCAL pair
-    shards and sharded pivots (knot-chunk pipeline or block-row).
-    Mirrors nullspace._iterate_ns incl. kkt_refine PCG (fresh-K applies
-    ride the sharded A/A^T); no AA / fused paths — asserted by the
+    shards and sharded pivots (knot-chunk pipeline, block-row or
+    SPIKE).  Mirrors nullspace._iterate_ns incl. kkt_refine PCG
+    (fresh-K applies ride the sharded A/A^T); no AA — asserted by the
     entry."""
     sop = None
     if mode == "spike":
@@ -230,29 +228,12 @@ def _iterate_ns_sharded(data: QPData, op: NSOp, s: NSSettings, axis: str,
 
     def kinv_apply_chunk(rho_idx, rhs):
         # knot-chunk pipeline: each device solves its contiguous chunk
-        # of the chain (production Thomas kernel on TPU, the XLA scan
-        # otherwise) and hands one [bs] boundary row to its neighbor —
+        # of the chain and hands one [bs] boundary row to its neighbor —
         # n fwd + n bwd ppermutes + ONE all_gather per apply, constant
         # in M (see module docstring)
-        Dloc = op.Dinvs[rho_idx]               # [L, bsp, bsp] local
+        Dloc = op.Dinvs[rho_idx]               # [L, bs, bs] local
         L = Dloc.shape[0]
-        bsp = Dloc.shape[-1]
         Mp = L * n
-        kernel = bool(s.thomas_kernel)
-        # both paths run at the operator's (possibly lane-padded) width:
-        # zero pivot rows/cols propagate exact zeros, and the Kronecker
-        # couplings act on the true bs prefix only
-        bw = bsp
-
-        def koT_w(Ho_k, v):
-            if bw == bs:
-                return koT(Ho_k, v)
-            return jnp.zeros(bw, v.dtype).at[:bs].set(koT(Ho_k, v[:bs]))
-
-        def ko_w(Ho_k, v):
-            if bw == bs:
-                return ko(Ho_k, v)
-            return jnp.zeros(bw, v.dtype).at[:bs].set(ko(Ho_k, v[:bs]))
 
         idx = jax.lax.axis_index(axis)
         # per-knot incoming/outgoing couplings, zero at the global ends
@@ -265,56 +246,40 @@ def _iterate_ns_sharded(data: QPData, op: NSOp, s: NSSettings, axis: str,
 
         b = rhs.reshape(B, K3, Mi, phi).transpose(2, 0, 1, 3)
         b = b.reshape(Mi, bs)
-        b_full = jnp.zeros((Mp, bw), dt_).at[:Mi, :bs].set(b)
+        b_full = jnp.zeros((Mp, bs), dt_).at[:Mi].set(b)
         b_loc = jax.lax.dynamic_slice_in_dim(b_full, idx * L, L)
 
-        if kernel:
-            from ..ops.pallas_thomas import (thomas_chunk_bwd,
-                                             thomas_chunk_fwd)
-            koM = jnp.kron(jnp.eye(B3, dtype=op.Kos.dtype), op.Kos[0])
-            koM = jnp.zeros((bsp, bsp), koM.dtype).at[:bs, :bs].set(koM)
+        def chunk_fwd(t_in):
+            # y-form scan (single-device make_kinv_apply math): step
+            # k uses Dinv_{k-1}; the chunk's first step consumes the
+            # carried t = Dinv y of the neighbor's last knot
+            y0 = b_loc[0] - koT(kin_l[0], t_in)
 
-            def chunk_fwd(t_in):
-                T = thomas_chunk_fwd(op.Dinvs, koM, b_loc, t_in, rho_idx,
-                                     interpret=interpret)
-                return T[-1], T
+            def f(y_prev, inp):
+                b_k, kin_k, Dinv_prev = inp
+                y_k = b_k - koT(kin_k, Dinv_prev @ y_prev)
+                return y_k, y_k
 
-            def chunk_bwd(x_in, T):
-                x = thomas_chunk_bwd(op.Dinvs, koM, T, x_in, rho_idx,
-                                     interpret=interpret)
-                return x[0], x
-        else:
-            def chunk_fwd(t_in):
-                # y-form scan (single-device make_kinv_apply math): step
-                # k uses Dinv_{k-1}; the chunk's first step consumes the
-                # carried t = Dinv y of the neighbor's last knot
-                y0 = b_loc[0] - koT_w(kin_l[0], t_in)
+            _, ys = jax.lax.scan(
+                f, y0, (b_loc[1:], kin_l[1:], Dloc[:-1]), unroll=4)
+            ys = jnp.concatenate([y0[None], ys], axis=0)
+            t_out = Dloc[-1] @ ys[-1]
+            return t_out, ys
 
-                def f(y_prev, inp):
-                    b_k, kin_k, Dinv_prev = inp
-                    y_k = b_k - koT_w(kin_k, Dinv_prev @ y_prev)
-                    return y_k, y_k
+        def chunk_bwd(x_in, ys):
+            def f(x_next, inp):
+                y_k, kout_k, Dinv_k = inp
+                x_k = Dinv_k @ (y_k - ko(kout_k, x_next))
+                return x_k, x_k
 
-                _, ys = jax.lax.scan(
-                    f, y0, (b_loc[1:], kin_l[1:], Dloc[:-1]), unroll=4)
-                ys = jnp.concatenate([y0[None], ys], axis=0)
-                t_out = Dloc[-1] @ ys[-1]
-                return t_out, ys
-
-            def chunk_bwd(x_in, ys):
-                def f(x_next, inp):
-                    y_k, kout_k, Dinv_k = inp
-                    x_k = Dinv_k @ (y_k - ko_w(kout_k, x_next))
-                    return x_k, x_k
-
-                _, xs = jax.lax.scan(f, x_in, (ys, kout_l, Dloc),
-                                     reverse=True, unroll=4)
-                return xs[0], xs
+            _, xs = jax.lax.scan(f, x_in, (ys, kout_l, Dloc),
+                                 reverse=True, unroll=4)
+            return xs[0], xs
 
         fwd_perm = [(d, (d + 1) % n) for d in range(n)]
         bwd_perm = [(d, (d - 1) % n) for d in range(n)]
-        zrow = jnp.zeros(bw, dt_)
-        zrows = jnp.zeros((L, bw), dt_)
+        zrow = jnp.zeros(bs, dt_)
+        zrows = jnp.zeros((L, bs), dt_)
 
         def fwd_step(step, carry):
             t_carry, rows = carry
@@ -338,8 +303,8 @@ def _iterate_ns_sharded(data: QPData, op: NSOp, s: NSSettings, axis: str,
 
         _, xs_loc = jax.lax.fori_loop(0, n, bwd_step, (zrow, zrows))
 
-        x = jax.lax.all_gather(xs_loc, axis, tiled=True)  # [Mp, bw]
-        x = x[:Mi, :bs].reshape(Mi, B, K3, phi).transpose(1, 2, 0, 3)
+        x = jax.lax.all_gather(xs_loc, axis, tiled=True)  # [Mp, bs]
+        x = x[:Mi].reshape(Mi, B, K3, phi).transpose(1, 2, 0, 3)
         return x.reshape(rhs.shape)
 
     def kinv_apply_spike(rho_idx, rhs):
@@ -572,15 +537,9 @@ def _iterate_ns_sharded(data: QPData, op: NSOp, s: NSSettings, axis: str,
 
 def _check_phases(phases, mode: str):
     for p in phases:
-        if p.fused_chunk or p.aa_depth:
+        if p.aa_depth:
             raise ValueError(
-                "sharded joint solve does not support fused_chunk / "
-                "aa_depth phases (the fused kernel is the "
-                "whole-solve-in-VMEM single-chip path; shard the knot "
-                "chunks through thomas_kernel phases instead)")
-        if p.thomas_kernel and mode != "chunk":
-            raise ValueError("thomas_kernel phases shard in mode='chunk' "
-                             "only (blockrow splits inside the matvec)")
+                "sharded joint solve does not support aa_depth phases")
         if p.kkt_refine and mode == "spike":
             # kkt_refine composes mathematically (the preconditioner is
             # just the spike apply) but is untested in this mode
@@ -591,15 +550,14 @@ def _check_phases(phases, mode: str):
                              "'banded' (knot-chunk / block-row sharding)")
 
 
-#: jitted solvers keyed on (mesh, axis, phases, mode, interpret):
+#: jitted solvers keyed on (mesh, axis, phases, mode):
 #: rebuilding the shard_map closure per call would defeat the jit cache
 #: — every solve would re-trace the 3-phase while-loop program
 _JIT_CACHE: dict = {}
 
 
-def _jitted(mesh, axis: str, phases, dspec, ospec, mode: str,
-            interpret: bool):
-    key = (mesh, axis, phases, mode, interpret)
+def _jitted(mesh, axis: str, phases, dspec, ospec, mode: str):
+    key = (mesh, axis, phases, mode)
     fn = _JIT_CACHE.get(key)
     if fn is not None:
         return fn
@@ -618,8 +576,7 @@ def _jitted(mesh, axis: str, phases, dspec, ospec, mode: str,
             iters_total = 0
             for s in phases:
                 x, info, state = _iterate_ns_sharded(
-                    d, o, s, axis, n=n, mode=mode, interpret=interpret,
-                    init=state)
+                    d, o, s, axis, n=n, mode=mode, init=state)
                 iters_total = iters_total + info.iters
             # TOTAL iterations across phases (mirrors solve_ns_phases)
             info = info._replace(iters=iters_total)
@@ -660,22 +617,19 @@ def place(data: QPData, op: NSOp, mesh, axis: str = "kkt",
 
 
 def solve_ns_phases_sharded(data: QPData, phases, op: NSOp, mesh,
-                            axis: str = "kkt", mode: str = "chunk",
-                            interpret: bool = False):
+                            axis: str = "kkt", mode: str = "chunk"):
     """Run the phased knot-state ADMM with ONE problem partitioned over
     ``mesh[axis]``: pivot inventory knot-chunk-sharded (mode="chunk",
-    default — runs the production streaming Thomas kernel per device
-    when the phases request it) or block-row-sharded (mode="blockrow"),
-    pair constraints P-sharded, coupling carried by ppermute / psum /
-    all_gather collectives.
+    default), block-row-sharded (mode="blockrow") or SPIKE-partitioned
+    (mode="spike", op from prepare_spike_np), pair constraints
+    P-sharded, coupling carried by ppermute / psum / all_gather
+    collectives.
 
     data/op: HOST leaves (numpy) as produced by assemble + prepare_ns_np
-    (flat banded layout; prepare with thomas_kernel=True for the kernel
-    path's lane-padded pivots), or trees already placed via ``place``
-    (these skip padding/transfer).  ``interpret`` runs the Pallas chunk
-    kernels in interpret mode (CPU tests only — orders of magnitude
-    slower).  Returns (x [B, 3, D], SolveInfo), replicated.  The jitted
-    program is cached per (mesh, axis, phases, mode).
+    (flat banded layout), or trees already placed via ``place`` (these
+    skip padding/transfer).  Returns (x [B, 3, D], SolveInfo),
+    replicated.  The jitted program is cached per (mesh, axis, phases,
+    mode).
     """
     _check_phases(phases, mode)
     if mode not in ("chunk", "blockrow", "spike"):
@@ -691,42 +645,27 @@ def solve_ns_phases_sharded(data: QPData, phases, op: NSOp, mesh,
                 f"{int(op.Dloc.shape[1])} chunks, mesh axis has {n}")
         d_dev, o_dev = place(data, op, mesh, axis, mode)
         dspec, ospec = _specs(d_dev, o_dev, axis, mode)
-        return _jitted(mesh, axis, tuple(phases), dspec, ospec, mode,
-                       interpret)(d_dev, o_dev)
-    bsp = int(op.Dinvs.shape[-1])
-    bs_true = (int(np.prod(np.asarray(data.lb).shape[:2]))
-               * int(op.F0.shape[1]))
-    if mode == "blockrow" and bsp != bs_true:
-        raise ValueError(
-            "mode='blockrow' needs an UNPADDED operator (prepared with "
-            f"thomas_kernel=False); got Dinvs[..., {bsp}] vs bs={bs_true}"
-            " — use mode='chunk'")
-    if mode == "blockrow" and bsp % n != 0:
-        raise ValueError(f"pivot block size {bsp} must divide over "
+        return _jitted(mesh, axis, tuple(phases), dspec,
+                       ospec, mode)(d_dev, o_dev)
+    bs = int(op.Dinvs.shape[-1])
+    if mode == "blockrow" and bs % n != 0:
+        raise ValueError(f"pivot block size {bs} must divide over "
                          f"{n} devices (pad agents, change the mesh, or "
                          "use mode='chunk')")
-    if op.Dinvs.ndim != 4:
-        raise ValueError("op must be prepared in the FLAT banded layout "
-                         "(fused_chunk grouped preps cannot shard)")
-    if any(p.thomas_kernel for p in phases) and bsp % 128 != 0:
-        raise ValueError(
-            "thomas_kernel phases need an operator prepared with "
-            "NSSettings.thomas_kernel=True (lane-padded pivots); got "
-            f"Dinvs[..., {bsp}]")
     d_dev, o_dev = place(data, op, mesh, axis, mode)
     dspec, ospec = _specs(d_dev, o_dev, axis, mode)
-    return _jitted(mesh, axis, tuple(phases), dspec, ospec, mode,
-                   interpret)(d_dev, o_dev)
+    return _jitted(mesh, axis, tuple(phases), dspec, ospec, mode)(
+        d_dev, o_dev)
 
 
 # ======================================================================
-# SPIKE-style substructuring (round-5): a PARALLEL decomposition of the
+# SPIKE-style substructuring: a PARALLEL decomposition of the
 # banded Thomas solve — vs the chunk pipeline's sequential
 # device-to-device chain.
 #
 # The knot axis is split into n interior chunks SEPARATED by single
 # separator knots.  Each device owns one chunk and factors/solves it
-# INDEPENDENTLY (no incoming carry — the round-4 chunk pipeline's
+# INDEPENDENTLY (no incoming carry — the chunk pipeline's
 # critical path is gone); the n-1 separator unknowns satisfy a small
 # block-tridiagonal Schur system whose per-rung factorization is
 # precomputed at prep, exactly like the main pivot inventory.  Per
@@ -740,9 +679,9 @@ def solve_ns_phases_sharded(data: QPData, phases, op: NSOp, mesh,
 #
 # Cost model vs the chunk pipeline: ~2x the block-apply FLOPs/stream
 # (two local solves instead of one) for n-way parallelism of the chain
-# — the classic SPIKE trade (Polizzi & Sameh).  The single-chip
+# — the classic SPIKE trade (Polizzi & Sameh).  The single-device
 # cyclic-reduction rejection (ARCHITECTURE.md) does NOT apply here:
-# across devices the aggregate VPU+DMA bandwidth is n x.
+# across devices the aggregate memory bandwidth is n x.
 # ======================================================================
 
 

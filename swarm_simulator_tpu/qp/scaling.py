@@ -1,6 +1,6 @@
 """Structure-preserving Ruiz equilibration for the trajectory QP.
 
-float32 on TPU cannot Cholesky-factor the raw KKT system: the jerk cost
+float32 cannot Cholesky-factor the raw KKT system: the jerk cost
 carries dt^(1-2*phi) ~ 1e3-scale entries and the continuity rows carry
 n!/(n-phi)! * dt^-phi factors up to 60 (squared via A^T rho A), giving
 condition numbers beyond f32's ~1e7 range.  Modified Ruiz scaling (as in

@@ -10,7 +10,7 @@ sequentially convexified around the previous solution and the QP is
 re-solved until the cost stabilizes (update_ineq_const :253-291,
 solveQP :95-157).
 
-TPU-native: all constraint tensors are assembled as dense arrays once; the
+Device-friendly: all constraint tensors are assembled as dense arrays once; the
 SCP outer loop re-fills only the collision block (same shapes -> a single
 compiled solver program), each inner solve is qp.dense ADMM on device.
 """

@@ -49,7 +49,7 @@ def scoped_timer(name: str, sink=None):
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
-    """jax.profiler trace context — the TPU-native deep-profiling path."""
+    """jax.profiler trace context — the device deep-profiling path."""
     import jax
     jax.profiler.start_trace(log_dir)
     try:

@@ -5,7 +5,7 @@ ecbs_planner.hpp:93, rbp_corridor.hpp:66) with a precomputed dense distance
 tensor.  The exact squared EDT is separable: one min-plus transform
     g(i) = min_j [ f(j) + (i-j)^2 ]
 per axis yields the exact 3-D squared distance (Felzenswalb & Huttenlocher).
-On TPU the min-plus transform is expressed as a dense [L, L] "tropical
+On device the min-plus transform is expressed as a dense [L, L] "tropical
 matmul" — a min-reduction over a broadcast sum — which XLA tiles well and
 which is tiny for planner-scale grids (~100^2 per axis).
 

@@ -1,4 +1,4 @@
-"""Dense occupancy voxel grid — the TPU-native environment representation.
+"""Dense occupancy voxel grid — the device-friendly environment representation.
 
 Replaces the reference's octomap::OcTree + DynamicEDTOctomap pair
 (swarm_traj_planner_rbp.cpp:73-83) with a dense [X, Y, Z] tensor whose

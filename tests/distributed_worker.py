@@ -17,8 +17,8 @@ joint: ONE joint banded solve (qp/nullspace_shard, default chunk mode)
 partitioned over the global 8-device mesh SPANNING BOTH PROCESSES —
 the pivot inventory's knot chunks and the pair constraints live on
 devices of different processes, so the ppermute carries / pair psum /
-solution all_gather cross the process boundary (DCN in real
-deployments).  Each process checks the sharded result against its own
+solution all_gather cross the process boundary (the host network in
+real multi-host deployments).  Each process checks the sharded result against its own
 single-device solve.
 """
 import os
@@ -33,6 +33,8 @@ os.environ["XLA_FLAGS"] = (
 
 import jax  # noqa: E402
 
+# CPU only, like tests/conftest.py: test workers never open the GPU (a
+# JAX process reserves most of a card's memory, so a second one fails)
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 

@@ -11,7 +11,9 @@ from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
 
 
 def test_joint_64agent_forest_gate():
@@ -38,11 +40,11 @@ def test_joint_64agent_forest_gate():
 
 def test_sweep_artifacts_regression():
     """The committed mission/map sweep artifacts are CI contracts: 21/22
-    reference missions and 43/50 stored maps collision-free (VERDICT
-    round 1 asked for these to be asserted, not just committed)."""
+    reference missions and 43/50 stored maps collision-free (asserted,
+    not just committed)."""
     import json
 
-    root = Path("/root/repo/benchmarks")
+    root = ROOT / "benchmarks"
     missions = [json.loads(line) for line in
                 (root / "mission_sweep_cpu_f64.jsonl").read_text()
                 .splitlines() if line.strip()]
@@ -93,12 +95,15 @@ def test_production_recipe_pinned():
     assert s.kkt_mode == "banded"
     assert (s.n_rungs, s.rho_min, s.rho_max) == (5, 1e-5, 1e-2)
     assert s.tighten == 2e-3 and s.warm_start == "x0"
-    assert s.aa_depth == 0 and not s.fused_chunk  # measured defaults
-    # two-dot pair-contraction split: gate-validated seeds 0-9 on the
-    # v5e (benchmarks/seeds59_gate_split2_tpu.log); NSSettings default
-    # stays 3
-    assert s.fused_pair_split == 2
-    assert nullspace.NSSettings().fused_pair_split == 3
+    assert s.aa_depth == 0 and s.kkt_refine == 0  # measured defaults
+    # the solver's whole option surface: one KKT-apply path per mode,
+    # no kernel-selection knobs
+    import dataclasses
+    assert {f.name for f in dataclasses.fields(nullspace.NSSettings)} == {
+        "rho", "sigma", "alpha", "max_iter", "eps_abs", "eps_rel",
+        "eps_dual_abs", "check_every", "adaptive_rho", "rho_min",
+        "rho_max", "n_rungs", "adapt_threshold", "rho_lo", "rho_hi",
+        "warm_start", "kkt_mode", "tighten", "kkt_refine", "aa_depth"}
     ladder = np.logspace(np.log10(s.rho_min), np.log10(s.rho_max),
                          s.n_rungs)
     old9 = np.logspace(-5, 1, 9)
@@ -108,30 +113,23 @@ def test_production_recipe_pinned():
     assert tuple(p.max_iter for p in ph) == (200, 600, 100)
     assert (ph[0].rho_lo, ph[1].rho_lo, ph[2].rho_lo) == (1e-3, None,
                                                           1e-2)
-    # fused-chunk production default: AUTO by backend — the VMEM
-    # kernel measured 4.17x the XLA scan on the real v5e
-    # (tools/fused_bench.py, benchmarks/fused_bench_tpu.log), so it is
-    # ON for accelerator backends and OFF on CPU (this suite)
-    import jax
-    assert all(p.fused_chunk == (jax.default_backend() != "cpu")
-               for p in ph)
-    assert all(p.fused_chunk for p in joint.production_phases(fused=True))
-    # replan schedules derived with kkt_refine must drop the fused
-    # kernel (no fresh-K apply in-kernel)
-    import dataclasses
-    fused = tuple(dataclasses.replace(p, fused_chunk=True) for p in ph)
-    r = joint.production_phases(base=fused[1], kkt_refine=1)
-    assert all(not p.fused_chunk and p.kkt_refine == 1 for p in r)
+    # every phase shares one base: the schedule compiles to ONE
+    # executable, and the escalation schedule reuses it
+    s0, _, _, _ = nullspace.schedule_arrays(ph)
+    assert nullspace.schedule_arrays(joint.escalation_phases(ph))[0] == s0
+    # replan schedules derived with kkt_refine keep everything else
+    r = joint.production_phases(base=ph[1], kkt_refine=1)
+    assert all(p.kkt_refine == 1 for p in r)
+    assert tuple(p.max_iter for p in r) == (200, 600, 100)
 
 
 def test_large_swarm_defaults_are_licensed_recipe():
-    """Round-5 policy pins (VERDICT r4 #3 + advisor): a plain
-    solve_trajectories caller at >= 128 agents gets the ORACLE-LICENSED
-    recipe by default — polish(4) after the cold solve (cold margin
-    1.52 -> 1.242 <= 1.25, benchmarks/oracle256_polish_tpu.json) —
-    and large-swarm replans default to FULL budgets (the short
-    REPLAN_BUDGETS_LARGE schedule never met the 1.25 licensing bar:
-    both replan256 artifacts record licensed: null)."""
+    """Policy pins: a plain solve_trajectories caller at >= 128 agents
+    gets the ORACLE-LICENSED recipe by default — polish(4) after the
+    cold solve (only cold+polish(4) came under the 1.25 bar,
+    tools/oracle256_study.py) — and large-swarm replans default to
+    FULL budgets (the short REPLAN_BUDGETS_LARGE schedule never met
+    the 1.25 licensing bar)."""
     from swarm_simulator_tpu.qp import joint
 
     assert joint.polish_rounds_for_swarm(256) == 4
@@ -147,7 +145,7 @@ def test_large_swarm_defaults_are_licensed_recipe():
 
     plan, mission, dummy = _tiny_plan(n_agents=2, M=4)
     param = Param(solver_dtype="float32", time_scale=False)
-    phases = joint.production_phases((30, 60, 30), fused=False)
+    phases = joint.production_phases((30, 60, 30))
     p1 = joint.solve_trajectories(plan, mission, param, phases=phases)
     assert p1.solver_info["polish_rounds"] == 0
     p2 = joint.solve_trajectories(plan, mission, param, phases=phases,
@@ -155,49 +153,54 @@ def test_large_swarm_defaults_are_licensed_recipe():
     assert p2.solver_info["polish_rounds"] == 1
 
 
-def test_kkt_path_autoselection():
-    """Past the fused VMEM bound, aligned big swarms route to the
-    streaming Pallas Thomas kernel (measured 3.4x the XLA scan on the
-    256-agent solve, tools/profile_256_solve.py); small swarms keep
-    the fused kernel; unaligned big swarms fall back to the XLA scan;
-    CPU and explicit-XLA schedules pass through untouched."""
-    import dataclasses
+def test_kkt_path_autoselection(monkeypatch):
+    """One KKT path for every backend: whatever jax.default_backend()
+    reports, solve_trajectories runs the same banded phases through
+    XLA's Thomas scan (nullspace.make_kinv_apply) — no backend name
+    routes the solve to a device-specific kernel."""
+    import jax
 
-    from swarm_simulator_tpu.qp import joint
+    from __graft_entry__ import _tiny_plan
 
-    ph = joint.production_phases(fused=True)
+    from swarm_simulator_tpu.core.types import Param
+    from swarm_simulator_tpu.qp import joint, nullspace
 
-    def sel(qn, M=40, pairs=None, backend="tpu", phases=ph):
-        pairs = qn * (qn - 1) // 2 if pairs is None else pairs
-        return joint.select_kkt_path(phases, qn, M, pairs, 3,
-                                     backend=backend)
+    param = Param(solver_dtype="float32", time_scale=False)
+    phases = joint.production_phases((30, 60, 30))
+    seen = {}
+    run = joint._run_schedule
 
-    # 64 agents fits VMEM -> fused stays
-    assert all(p.fused_chunk and not p.thomas_kernel for p in sel(64, 36))
-    # 256 agents -> streaming Thomas (bs = 2304, naturally aligned)
-    big = sel(256, 72)
-    assert all(p.thomas_kernel and not p.fused_chunk for p in big)
-    # 96 agents: past VMEM, bs = 864 pads to 896 at prep -> Thomas too
-    # (measured 4x the XLA scan even padded)
-    mid = sel(96, 72)
-    assert all(p.thomas_kernel and not p.fused_chunk for p in mid)
-    # CPU backend: untouched
-    assert sel(256, 72, backend="cpu") is ph
-    # explicit XLA schedule: untouched
-    xla = joint.production_phases(fused=False)
-    assert joint.select_kkt_path(xla, 256, 72, 100, 3,
-                                 backend="tpu") is xla
-    # derived replan schedules keep the thomas path, never re-fuse
-    r = joint.production_phases(base=big[1], kkt_refine=1)
-    assert all(p.thomas_kernel and not p.fused_chunk for p in r)
+    def spy(data_dev, op_dev, ph):
+        seen.setdefault(jax.default_backend(), []).append(
+            (ph, op_dev.Dinvs.shape))
+        return run(data_dev, op_dev, ph)
+
+    monkeypatch.setattr(joint, "_run_schedule", spy)
+    ctrls = {}
+    for backend in ("cpu", "gpu", "cuda", "rocm"):
+        monkeypatch.setattr(jax, "default_backend", lambda b=backend: b)
+        plan, mission, _ = _tiny_plan(n_agents=2, M=4)
+        joint.solve_trajectories(plan, mission, param, phases=phases)
+        ctrls[backend] = plan.ctrl
+    # same schedules, same [R, Mi, bs, bs] banded pivot layout, same
+    # solution on every backend name
+    ref = seen["cpu"]
+    assert all(p.kkt_mode == "banded" for ph, _ in ref for p in ph)
+    assert ref[0][1] == (5, 3, 18, 18)
+    for backend, calls in seen.items():
+        assert calls == ref, backend
+        np.testing.assert_array_equal(ctrls[backend], ctrls["cpu"])
+    # and the banded apply is the only one a banded operator gets
+    op = nullspace.prepare_ns_np(
+        joint.assemble_joint(plan, mission, param)[0], phases[0])
+    assert op.Kinvs is None and op.Dinvs.ndim == 4
 
 
 def test_replan_prep_device_collision_free():
     """replan_prep='device' (the accelerator-default replan mode:
     on-device f32 prep of the fresh operator + kkt_refine=1 PCG) must
     plan a corridor-refresh round collision-free — CPU twin of the
-    measured TPU mode (benchmarks/replan_study_tpu.log: 0.78 s replan
-    cycles vs 6.6 s fresh host prep, objective 1.029 vs 0.959)."""
+    device mode (tools/replan_study.py)."""
     import dataclasses
 
     import jax
@@ -208,14 +211,13 @@ def test_replan_prep_device_collision_free():
     from swarm_simulator_tpu.eval.safety import safety_margin_ratio
     from swarm_simulator_tpu.eval.sample import (sample_times,
                                                  sample_trajectories)
-    from swarm_simulator_tpu.io.mission_json import load_mission
     from swarm_simulator_tpu.qp import joint
     from swarm_simulator_tpu.search.planner import plan_initial_trajectories
     from swarm_simulator_tpu.world.esdf import ESDF
     from swarm_simulator_tpu.world.forest import generate_forest
+    from test_parity_ipm import mission_8agents
 
-    mission = load_mission(
-        "/root/reference/swarm_planner/missions/mission_8agents_12.json")
+    mission = mission_8agents()
     param = sst.Param(world_z_min=0.0, solver_dtype="float32",
                       grid_xy_res=0.5, grid_z_res=0.5,
                       solver="nullspace", iteration=2)
@@ -244,8 +246,8 @@ def test_replan_prep_device_collision_free():
 def test_cold_prep_device_collision_free():
     """cold_prep='device': the low-latency first plan (on-device f32
     prep + refine-1 phases for round 0) must land collision-free with
-    goal pins — the time-to-first-plan mode (64 agents ~0.8 s, 256
-    agents ~28 s vs 8 min host prep, benchmarks/devprep256_tpu.json)."""
+    goal pins — the time-to-first-plan mode (at 256 agents host prep
+    takes minutes)."""
     import jax.numpy as jnp
 
     import swarm_simulator_tpu as sst
@@ -253,14 +255,13 @@ def test_cold_prep_device_collision_free():
     from swarm_simulator_tpu.eval.safety import safety_margin_ratio
     from swarm_simulator_tpu.eval.sample import (sample_times,
                                                  sample_trajectories)
-    from swarm_simulator_tpu.io.mission_json import load_mission
     from swarm_simulator_tpu.qp import joint
     from swarm_simulator_tpu.search.planner import plan_initial_trajectories
     from swarm_simulator_tpu.world.esdf import ESDF
     from swarm_simulator_tpu.world.forest import generate_forest
+    from test_parity_ipm import mission_8agents
 
-    mission = load_mission(
-        "/root/reference/swarm_planner/missions/mission_8agents_12.json")
+    mission = mission_8agents()
     param = sst.Param(world_z_min=0.0, solver_dtype="float32",
                       grid_xy_res=0.5, grid_z_res=0.5, solver="nullspace")
     world = generate_forest(mission, world_min=param.world_min,
@@ -348,7 +349,7 @@ def test_degenerate_box_guard_and_rescue():
 
     # the production phases solve it gate-clean (feasible by
     # construction: the straight z=0.5 line satisfies the slot)
-    phases = joint.production_phases((50, 150, 50), fused=False)
+    phases = joint.production_phases((50, 150, 50))
     x, info = nullspace.solve_ns_phases(
         jax.tree.map(jnp.asarray, data), phases)
     ctrl = np.asarray(x, np.float64).transpose(0, 2, 1).reshape(

@@ -177,35 +177,6 @@ def test_solve_ns_phases_accepts_host_op():
     assert np.allclose(np.asarray(x_dev), np.asarray(x_host), atol=1e-8)
 
 
-def test_thomas_kernel_guards():
-    """The Pallas Thomas path must be impossible to misuse silently:
-    non-uniform segment durations are rejected at prep (the kernel
-    assumes a constant off-diagonal block), and a prep/solve flag
-    mismatch raises instead of re-padding in-trace or shape-crashing."""
-    import pytest
-
-    from swarm_simulator_tpu.qp import nullspace
-
-    data_nu, _ = _data(n_agents=3, M=5, nonuniform=True)
-    s_pl = nullspace.NSSettings(kkt_mode="banded", n_rungs=2,
-                                thomas_kernel=True)
-    with pytest.raises(ValueError, match="uniform"):
-        nullspace.prepare_ns_np(data_nu, s_pl)
-
-    data, _ = _data(n_agents=3, M=5)
-    op_pl = nullspace.prepare_ns_np(data, s_pl)        # padded
-    assert op_pl.Dinvs.shape[-1] % 128 == 0
-    with pytest.raises(ValueError, match="thomas_kernel"):
-        nullspace.make_kinv_apply(op_pl, 3, 3, 5, 3,
-                                  thomas_kernel=False)
-
-    s_xla = nullspace.NSSettings(kkt_mode="banded", n_rungs=2)
-    op_xla = nullspace.prepare_ns_np(data, s_xla)      # unpadded
-    with pytest.raises(ValueError, match="lane-padded"):
-        nullspace.make_kinv_apply(op_xla, 3, 3, 5, 3,
-                                  thomas_kernel=True)
-
-
 def test_refresh_ns_op_np():
     """Stale-operator replan support: refresh_ns_op_np must reproduce a
     full prepare_ns_np's endpoint-dependent leaves exactly (same time
@@ -262,189 +233,6 @@ def test_kkt_refine_noop_on_fresh_op():
     assert np.abs(x0 - x1).max() < 1e-6, np.abs(x0 - x1).max()
 
 
-def test_fused_chunk_matches_xla_path():
-    """The VMEM-resident fused ADMM chunk kernel (ops/pallas_nsfused.py,
-    interpret mode on CPU) must track the XLA scan path iteration-for-
-    iteration: same phased solve, zero tolerances (no early exit), same
-    prepared f64 operator — control points agree to f32 roundoff."""
-    import dataclasses
-
-    import jax
-    import jax.numpy as jnp
-
-    from swarm_simulator_tpu.qp import nullspace
-
-    # 8 agents (the smallest sublane-ALIGNED swarm — fused_fits rejects
-    # 3B % 8 != 0, so a 3-agent "fused" solve would silently test the
-    # fallback), M=6: a different knot count than the _8agents test
-    data, _ = _data(n_agents=8, M=6)
-    data = jax.tree.map(
-        lambda a: np.asarray(a, np.float32)
-        if np.asarray(a).dtype == np.float64 else np.asarray(a), data)
-    s0 = nullspace.NSSettings(kkt_mode="banded", max_iter=150,
-                              check_every=50, eps_abs=0.0, eps_rel=0.0,
-                              eps_dual_abs=0.0)
-
-    def solve(s):
-        op = nullspace.prepare_ns_np(data, s)
-        if s.fused_chunk:
-            # guard against vacuously comparing XLA to XLA
-            assert np.asarray(op.Dinvs).ndim == 5, "kernel not engaged"
-        x, info = jax.jit(
-            lambda d, o: nullspace.solve_ns_phases(d, (s,), op=o))(
-                jax.tree.map(jnp.asarray, data), jax.device_put(op))
-        return np.asarray(x, np.float64)
-
-    x_ref = solve(s0)
-    x_fused = solve(dataclasses.replace(s0, fused_chunk=True))
-    scale = max(1.0, np.abs(x_ref).max())
-    err = np.abs(x_ref - x_fused).max() / scale
-    assert err < 5e-5, err
-
-
-def test_fused_chunk_matches_xla_path_8agents():
-    """Same equivalence at a larger shape (8 agents, M=8, 28 pairs) —
-    exercises multi-tile rows and the pair-lane padding."""
-    import dataclasses
-
-    import jax
-    import jax.numpy as jnp
-
-    from swarm_simulator_tpu.qp import nullspace
-
-    data, _ = _data(n_agents=8, M=8)
-    data = jax.tree.map(
-        lambda a: np.asarray(a, np.float32)
-        if np.asarray(a).dtype == np.float64 else np.asarray(a), data)
-    s0 = nullspace.NSSettings(kkt_mode="banded", max_iter=100,
-                              check_every=50, eps_abs=0.0, eps_rel=0.0,
-                              eps_dual_abs=0.0)
-
-    def solve(s):
-        op = nullspace.prepare_ns_np(data, s)
-        if s.fused_chunk:
-            assert np.asarray(op.Dinvs).ndim == 5, "kernel not engaged"
-        x, info = jax.jit(
-            lambda d, o: nullspace.solve_ns_phases(d, (s,), op=o))(
-                jax.tree.map(jnp.asarray, data), jax.device_put(op))
-        return np.asarray(x, np.float64)
-
-    x_ref = solve(s0)
-    x_fused = solve(dataclasses.replace(s0, fused_chunk=True))
-    scale = max(1.0, np.abs(x_ref).max())
-    err = np.abs(x_ref - x_fused).max() / scale
-    assert err < 5e-5, err
-
-
-def test_fused_pair_split2_same_quality():
-    """fused_pair_split=2 (two-dot mantissa split on the MXU pair
-    contractions, ~10 us/iter faster on the v5e) perturbs each A-apply
-    by ~1e-5 relative.  ADMM iterates diverge PATHWISE under any such
-    perturbation, so the pin is on solution QUALITY, not coordinates:
-    same primal-residual class and objective within 1%.  (The
-    production-scale arbiter is the hardware bench gate: 5 forest
-    seeds + extended seeds 5-9 pass with split 2 — BENCH_r03 /
-    benchmarks/seeds59_gate_split2_tpu.log.)"""
-    import dataclasses
-
-    import jax
-    import jax.numpy as jnp
-
-    from swarm_simulator_tpu.qp import nullspace
-
-    data, _ = _data(n_agents=8, M=6)
-    data = jax.tree.map(
-        lambda a: np.asarray(a, np.float32)
-        if np.asarray(a).dtype == np.float64 else np.asarray(a), data)
-    s3 = nullspace.NSSettings(kkt_mode="banded", max_iter=600,
-                              check_every=50, fused_chunk=True,
-                              eps_abs=0.0, eps_rel=0.0,
-                              eps_dual_abs=0.0)
-    s2 = dataclasses.replace(s3, fused_pair_split=2)
-
-    def solve(s):
-        op = nullspace.prepare_ns_np(data, s)
-        assert np.asarray(op.Dinvs).ndim == 5, "kernel not engaged"
-        x, info = jax.jit(
-            lambda d, o: nullspace.solve_ns_phases(d, (s,), op=o))(
-                jax.tree.map(jnp.asarray, data), jax.device_put(op))
-        return np.asarray(x, np.float64), info
-
-    x3, i3 = solve(s3)
-    x2, i2 = solve(s2)
-    rp3 = float(np.asarray(i3.r_prim))
-    rp2 = float(np.asarray(i2.r_prim))
-    assert rp2 < 2.0 * rp3 + 1e-6, (rp2, rp3)
-    o3 = float(np.asarray(i3.obj))
-    o2 = float(np.asarray(i2.obj))
-    assert abs(o2 - o3) / max(abs(o3), 1e-9) < 1e-2, (o2, o3)
-
-
-def test_bf16_precond_quality_and_guards():
-    """precond_dtype='bfloat16' halves the pivot stream of the banded
-    apply; it is legal only as a PRECONDITIONER (kkt_refine >= 1,
-    thomas_kernel).  Quality pin: with refine-1 PCG against the fresh
-    f32 operator, the solve matches the f32-preconditioner solution's
-    residual class and objective within 2%."""
-    import dataclasses
-
-    import jax
-    import jax.numpy as jnp
-    import pytest
-
-    import swarm_simulator_tpu.ops.pallas_thomas as pt
-    from swarm_simulator_tpu.qp import nullspace
-
-    data, _ = _data(n_agents=3, M=5)
-    data = jax.tree.map(
-        lambda a: np.asarray(a, np.float32)
-        if np.asarray(a).dtype == np.float64 else np.asarray(a), data)
-    s32 = nullspace.NSSettings(kkt_mode="banded", max_iter=300,
-                               check_every=50, thomas_kernel=True,
-                               kkt_refine=1, eps_abs=0.0, eps_rel=0.0,
-                               eps_dual_abs=0.0)
-    s16 = dataclasses.replace(s32, precond_dtype="bfloat16")
-
-    # guards: preconditioner-only, kernel-only
-    with pytest.raises(ValueError, match="kkt_refine"):
-        nullspace.prepare_ns_np(
-            data, dataclasses.replace(s16, kkt_refine=0))
-    with pytest.raises(ValueError, match="thomas_kernel"):
-        nullspace.prepare_ns_np(
-            data, dataclasses.replace(s16, thomas_kernel=False))
-    # an XLA-scan solve must refuse a bf16 inventory outright
-    op16 = nullspace.prepare_ns_np(data, s16)
-    import ml_dtypes
-    assert np.asarray(op16.Dinvs).dtype == ml_dtypes.bfloat16
-    with pytest.raises(ValueError, match="bf16 pivot inventory"):
-        nullspace.make_kinv_apply(jax.device_put(op16), 3, 3, 5, 3,
-                                  thomas_kernel=False)
-
-    orig = pt.thomas_solve_pallas
-    pt.thomas_solve_pallas = lambda *a, **k: orig(*a, interpret=True,
-                                                  **k)
-    try:
-        def solve(s, op):
-            x, info = jax.jit(
-                lambda d, o: nullspace.solve_ns_phases(d, (s,), op=o))(
-                    jax.tree.map(jnp.asarray, data), jax.device_put(op))
-            return np.asarray(x, np.float64), info
-
-        op32 = nullspace.prepare_ns_np(data, s32)
-        x32, i32 = solve(s32, op32)
-        x16, i16 = solve(s16, op16)
-    finally:
-        pt.thomas_solve_pallas = orig
-    rp32 = float(np.asarray(i32.r_prim))
-    rp16 = float(np.asarray(i16.r_prim))
-    assert rp16 < 2.0 * rp32 + 1e-6, (rp16, rp32)
-    o32 = float(np.asarray(i32.obj))
-    o16 = float(np.asarray(i16.obj))
-    # ~3% on this deliberately tiny, ill-conditioned toy (measured);
-    # production-scale quality is arbitrated by the hardware gate
-    assert abs(o16 - o32) / max(abs(o32), 1e-9) < 5e-2, (o16, o32)
-
-
 def test_aa_depth_converges_tiny():
     """Chunk-level Anderson acceleration (NSSettings.aa_depth) reaches
     the same solution as the plain loop on a small banded problem.
@@ -474,66 +262,8 @@ def test_aa_depth_converges_tiny():
     assert np.abs(x0 - x1).max() < 1e-4, np.abs(x0 - x1).max()
 
 
-def test_fused_prep_falls_back_on_nonuniform_dt():
-    """fused_chunk is the production DEFAULT on accelerators, so prep
-    must degrade gracefully (flat layout -> XLA scan) when the kernel
-    cannot run: non-uniform segment durations (e.g. flat-corridor
-    rebuilt knots).  Round-2 raised here; round-3 falls back."""
-    import jax
-    import jax.numpy as jnp
-
-    from swarm_simulator_tpu.qp import nullspace
-
-    # 8 agents: B3=24 is sublane-aligned, so non-uniform dt is the ONLY
-    # reason prep falls back here (fused_fits would reject 3 agents)
-    data, _ = _data(n_agents=8, M=5, nonuniform=True)
-    s = nullspace.NSSettings(kkt_mode="banded", n_rungs=3,
-                             fused_chunk=True, max_iter=100,
-                             check_every=50)
-    op = nullspace.prepare_ns_np(data, s)
-    assert np.asarray(op.Dinvs).ndim == 4          # flat, not grouped
-
-    # the solve takes the XLA scan path off the flat layout and still
-    # produces a valid trajectory (endpoint pins machine-exact)
-    x, info = jax.jit(
-        lambda d, o: nullspace.solve_ns_phases(d, (s,), op=o))(
-        jax.tree.map(jnp.asarray, data), jax.device_put(op))
-    x = np.asarray(x, np.float64)
-    assert np.isfinite(x).all()
-    err = np.abs(np.einsum("rd,bkd->bkr", np.asarray(data.Aeq), x)
-                 - np.asarray(data.deq)).max()
-    assert err < 1e-9, err
-
-    # uniform dt + fused + aligned lanes -> grouped layout (kernel path)
-    data_u, _ = _data(n_agents=8, M=5)
-    op_u = nullspace.prepare_ns_np(data_u, s)
-    assert np.asarray(op_u.Dinvs).ndim == 5
-
-
-def test_fused_fits_rejects_unaligned_agent_lanes():
-    """Mosaic requires grouped-pivot sublane slices aligned to the
-    8-sublane tile: 3B % 8 != 0 must fall back to the flat layout
-    (hit compiling a 2-agent swarm on the real v5e — the interpreter
-    accepts what the compiler rejects, so this gate lives on host)."""
-    from swarm_simulator_tpu.ops.pallas_nsfused import fused_fits
-    from swarm_simulator_tpu.qp import nullspace
-
-    assert not fused_fits(2, 4, 1)      # B3=6: unaligned
-    assert not fused_fits(4, 8, 6)      # B3=12: unaligned
-    assert fused_fits(8, 8, 28)         # B3=24: aligned
-    assert fused_fits(64, 36, 2016)     # the bench problem
-    assert not fused_fits(256, 72, 32640)   # VMEM + lane-group bound
-
-    # prep honors the rejection: 2 agents + fused -> flat layout
-    data, _ = _data(n_agents=2, M=4)
-    s = nullspace.NSSettings(kkt_mode="banded", n_rungs=3,
-                             fused_chunk=True)
-    op = nullspace.prepare_ns_np(data, s)
-    assert np.asarray(op.Dinvs).ndim == 4
-
-
 def test_schedule_scan_matches_per_phase_path():
-    """Round-5 compile-wall path: solve_ns_schedule (ONE lax.scan'd
+    """Compile-wall path: solve_ns_schedule (ONE lax.scan'd
     while-body, budgets/fences as traced arrays) must be BIT-IDENTICAL
     to the legacy per-phase loop — same chunk math, same rho walk,
     same early-exit semantics — and schedule_arrays must normalize the
@@ -548,7 +278,7 @@ def test_schedule_scan_matches_per_phase_path():
 
     data, param = _data(n_agents=4, M=6)
     d = jax.tree.map(jnp.asarray, data)
-    phases = joint.production_phases((100, 200, 100), fused=False)
+    phases = joint.production_phases((100, 200, 100))
     op = jax.device_put(ns.prepare_ns_np(data, phases[0]))
 
     # legacy path (force by per-phase _iterate_ns)

@@ -1,9 +1,8 @@
 """Cross-device decomposition of ONE joint banded solve
 (qp/nullspace_shard.py): SURVEY §5's communication row — pivot
-inventory knot-chunk-sharded (round 4, ppermute pipeline running the
-production Thomas kernels per device) or block-row-sharded (round 3),
-pair constraints P-sharded — validated on the 8-virtual-CPU-device
-mesh against the single-device path."""
+inventory knot-chunk-sharded (ppermute pipeline), block-row-sharded or
+SPIKE-partitioned, pair constraints P-sharded — validated on the
+8-virtual-CPU-device mesh against the single-device path."""
 import dataclasses
 
 import jax
@@ -91,32 +90,6 @@ def test_sharded_chunk_uneven_knots():
         assert err < 5e-5, err
 
 
-def test_sharded_chunk_thomas_kernel_interpret():
-    """The production-kernel sharded path: chunked Pallas Thomas sweeps
-    (interpret mode on CPU) == the chunked XLA scan on the SAME
-    lane-padded operator, same mesh.  Validates the carry math and the
-    zero-pad propagation of the chunk kernels."""
-    data, _ = _data(n_agents=8, M=8)
-    data = _f32(data)
-    ph_scan = _phases((20,), check_every=10)
-    ph_kern = tuple(dataclasses.replace(p, thomas_kernel=True)
-                    for p in ph_scan)
-    op = nullspace.prepare_ns_np(
-        data, dataclasses.replace(ph_kern[0], max_iter=1))
-
-    mesh = _mesh(4)
-    x_scan, info_scan = nullspace_shard.solve_ns_phases_sharded(
-        data, ph_scan, op, mesh, mode="chunk")
-    x_kern, info_kern = nullspace_shard.solve_ns_phases_sharded(
-        data, ph_kern, op, mesh, mode="chunk", interpret=True)
-
-    assert int(info_scan.iters) == int(info_kern.iters)
-    scale = max(1.0, float(np.abs(np.asarray(x_scan)).max()))
-    err = float(np.abs(np.asarray(x_scan, np.float64)
-                       - np.asarray(x_kern, np.float64)).max()) / scale
-    assert err < 5e-5, err
-
-
 def test_sharded_kkt_refine_matches_single_device():
     """kkt_refine=1 PCG (the production replan mode) sharded over 8
     devices == the single-device refine path: the fresh-K applies ride
@@ -167,23 +140,26 @@ def test_sharded_rejects_unshardable():
     with pytest.raises(ValueError, match="banded"):
         nullspace_shard.solve_ns_phases_sharded(data, bad, op, mesh)
 
-    fused = tuple(dataclasses.replace(p, fused_chunk=True) for p in phases)
-    with pytest.raises(ValueError, match="fused_chunk"):
-        nullspace_shard.solve_ns_phases_sharded(data, fused, op, mesh)
+    aa = tuple(dataclasses.replace(p, aa_depth=2) for p in phases)
+    with pytest.raises(ValueError, match="aa_depth"):
+        nullspace_shard.solve_ns_phases_sharded(data, aa, op, mesh)
 
-    thomas = tuple(dataclasses.replace(p, thomas_kernel=True)
-                   for p in phases)
-    with pytest.raises(ValueError, match="blockrow"):
-        nullspace_shard.solve_ns_phases_sharded(data, thomas, op, mesh,
-                                                mode="blockrow")
-    # kernel phases on an UNPADDED op are rejected upfront
-    with pytest.raises(ValueError, match="lane-padded"):
-        nullspace_shard.solve_ns_phases_sharded(data, thomas, op, mesh,
-                                                mode="chunk")
+    with pytest.raises(ValueError, match="unknown shard mode"):
+        nullspace_shard.solve_ns_phases_sharded(data, phases, op, mesh,
+                                                mode="rows")
+    # block-row sharding splits each pivot block's rows: bs = 72 does
+    # not divide over 5 devices
+    with pytest.raises(ValueError, match="must divide"):
+        nullspace_shard.solve_ns_phases_sharded(data, phases, op,
+                                                _mesh(5), mode="blockrow")
+    # SPIKE needs its own operator
+    with pytest.raises(ValueError, match="prepare_spike_np"):
+        nullspace_shard.solve_ns_phases_sharded(data, phases, op, mesh,
+                                                mode="spike")
 
 
 def test_spike_matches_single_device():
-    """Round-5 SPIKE substructuring: the PARALLEL decomposition of the
+    """SPIKE substructuring: the PARALLEL decomposition of the
     banded Thomas solve (independent per-chunk solves + separator Schur
     chain) must match the single-device path to f32 reduction
     tolerance, on both an exactly-partitioned knot axis (Mi = 15, n=4,

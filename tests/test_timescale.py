@@ -66,8 +66,8 @@ def test_apply_scale_preserves_endpoints():
 
 def test_bench_gate_applies_time_scaling():
     """bench.gate_quality must compute the reference's timeScale pass
-    and verify max_vel/max_acc on the SCALED trajectory (round-2
-    VERDICT missing #4): with tightened limits the gate reports a
+    and verify max_vel/max_acc on the SCALED trajectory: with
+    tightened limits the gate reports a
     scale > 1 and still passes; an identical trajectory judged against
     generous limits reports scale == 1."""
     import sys

@@ -13,7 +13,7 @@ the rotating best-response BOUND (a 4-agent best-response optimum is a
 lower bound the exact joint optimum cannot reach either), which this
 study quantifies directly for the first time.
 
-Writes benchmarks/activeset64_cpu.json (or _tpu on accelerator).
+Writes benchmarks/activeset64_cpu.json (or _gpu on the card).
 Usage: python tools/activeset_study.py [--seeds 0,1,2] [--cpu]
 """
 from __future__ import annotations
@@ -26,7 +26,9 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):
@@ -43,18 +45,16 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
 
     import bench
     from swarm_simulator_tpu.qp import activeset, convert, nullspace
-    from swarm_simulator_tpu.qp import joint as qjoint
 
     backend = jax.default_backend()
     out_path = args.out or (
-        f"benchmarks/activeset64_{'cpu' if backend == 'cpu' else 'tpu'}"
+        f"benchmarks/activeset64_{'cpu' if backend == 'cpu' else 'gpu'}"
         ".json")
 
     phases = None
@@ -64,9 +64,7 @@ def main():
         plan, mission, param = bench.build_problem(seed=seed)
         data, dummy = bench.assemble_joint(plan, mission, param)
         if phases is None:
-            phases = qjoint.select_kkt_path(
-                bench.ns_phases(), mission.qn, plan.M,
-                len(np.asarray(plan.pair_idx)), param.phi)
+            phases = bench.ns_phases()
             solve = jax.jit(lambda d, o: nullspace.solve_ns_phases(
                 d, phases, op=o))
         M, n = plan.M, param.n

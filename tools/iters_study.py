@@ -1,9 +1,10 @@
 """How many ADMM iterations does the verified 2-round cycle actually need?
 
 Runs the bench problem on the CPU backend in float32 (same arithmetic class
-as TPU matmul-precision-highest, fast compiles) and reports per-round
+as the device at matmul precision "highest", fast compiles) and reports per-round
 iteration counts, residuals, and the safety ratio as max_iter shrinks.
 """
+import os
 import dataclasses
 import sys
 import time
@@ -15,14 +16,16 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
-
-sys.path.insert(0, "/root/repo")
 import bench  # noqa: E402
 from swarm_simulator_tpu.eval.safety import safety_margin_ratio  # noqa: E402
 from swarm_simulator_tpu.eval.sample import (sample_times,  # noqa: E402
                                              sample_trajectories)
 from swarm_simulator_tpu.parallel import seqbatch  # noqa: E402
 from swarm_simulator_tpu.qp import admm, assemble, convert  # noqa: E402
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):

@@ -1,6 +1,6 @@
 """Margin-triggered budget escalation on the 10-seed gate set.
 
-Round-3 VERDICT weak #2: the production schedule's worst oracle margin
+The production schedule's worst oracle margin
 on the extended seeds was 1.203 vs the 1.25 gate bound — thin headroom.
 This study measures, per seed 0-9:
 
@@ -17,13 +17,14 @@ Escalation recomputes BOTH sides of the margin (the best-response
 oracle optimum depends on the other agents' final trajectories).
 
 CPU study (algorithmic; margins are backend-independent to ~1e-3 —
-the bench re-verifies the chosen mechanism on TPU).  Writes
+the bench re-verifies the chosen mechanism on the device).  Writes
 benchmarks/margin_escalation_cpu.json.
 
 Usage: python tools/margin_escalation_study.py [--seeds 0,...,9]
 """
 from __future__ import annotations
 
+import os
 import argparse
 import dataclasses
 import json
@@ -32,6 +33,10 @@ import time
 
 import numpy as np
 
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):
@@ -46,9 +51,8 @@ def main():
 
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
 
     sys.path.insert(0, ".")

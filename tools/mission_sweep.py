@@ -19,10 +19,12 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-
-sys.path.insert(0, "/root/repo")
 import swarm_simulator_tpu as sst  # noqa: E402
 from swarm_simulator_tpu.io.mission_json import load_mission  # noqa: E402
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):

@@ -1,17 +1,16 @@
 """Monte-Carlo at HEADLINE difficulty: 32 seeds of the canonical
-64-agent / 20-obstacle forest (round-3 VERDICT weak #6 — the existing
-monte_carlo64 artifact used easy 8-agent swaps; the 64-agent forest
-class was covered by only 10 single seeds).
+64-agent / 20-obstacle forest (the 64-agent forest class was
+otherwise covered by only 10 single seeds).
 
 Each seed runs the full production pipeline (search -> corridors ->
-host-f64 prep -> fused joint solve) and the FULL safety gate; the
+host-f64 prep -> joint solve) and the FULL safety gate; the
 distributional statement is gates-passed / ratio distribution / solve
 time distribution.  Objective margins at this difficulty are covered
 by the 10-seed escalation study (benchmarks/margin_escalation_cpu.json)
 and the bench's per-seed rotating oracle — re-running 32 IPM solves
 here would add ~15 min of CPU for a dimension already measured.
 
-Writes benchmarks/monte_carlo64_forest_tpu.json.
+Writes benchmarks/monte_carlo64_forest_gpu.json.
 Usage: python tools/monte_carlo64_forest.py [--seeds 32] [--cpu]
 """
 from __future__ import annotations
@@ -23,6 +22,10 @@ import sys
 import time
 
 import numpy as np
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):
@@ -38,18 +41,15 @@ def main():
                          "their one-time compile")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--out",
-                    default="benchmarks/monte_carlo64_forest_tpu.json")
+                    default="benchmarks/monte_carlo64_forest_gpu.json")
     args = ap.parse_args()
 
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
-
-    sys.path.insert(0, "/root/repo")
     import bench
     from swarm_simulator_tpu.qp import nullspace
 
@@ -74,7 +74,7 @@ def main():
         plan, mission, param = bench.build_problem(seed)
         M_raw = plan.M
         if plan.M < 36:
-            # round-5 (VERDICT r4 #5 — no silent caps): short-makespan
+            # no silent caps: short-makespan
             # seeds PAD to the shared M=36 bucket (hold-at-goal
             # segments, the reference's own makespan+3 relaxation taken
             # further, ecbs_planner.hpp:49-70) and run through the same

@@ -1,5 +1,5 @@
-"""32-agent FULL-JOINT best-response anchor for the 256-agent oracle
-(round-5, VERDICT r4 weak #4): the rotating oracle solves 4-agent
+"""32-agent FULL-JOINT best-response anchor for the 256-agent oracle:
+the rotating oracle solves 4-agent
 batches; this computes the exact f64 IPM optimum of a WHOLE 32-AGENT
 GROUP's joint best-response QP at 256-agent density (everyone outside
 the group fixed at the production solution — the same one-sided pair
@@ -26,7 +26,9 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):
@@ -52,9 +54,8 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
 
     import bench
     import swarm_simulator_tpu as sst

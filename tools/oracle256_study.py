@@ -1,24 +1,21 @@
 """256-agent objective oracle: rotating-batch IPM best-response gate.
 
-Round-3 VERDICT missing #2: above 64 agents the only objective
-yardstick was the solver's own full-budget solve (self-referential).
-The f64 IPM best-response oracle (bench.ipm_best_response_batch0)
-turns out to be tractable at 256 agents — the reduced sparse program
-is ~2556 unknowns x ~450k sparse rows, ~27 s per VERIFIED solve on
-this host (the "dense 18 GB" concern predated the sparse reduced
-path).
+Above 64 agents the only other objective yardstick is the solver's
+own full-budget solve (self-referential).  The f64 IPM best-response
+oracle (bench.ipm_best_response_batch0) is tractable at 256 agents —
+the reduced sparse program is ~2556 unknowns x ~450k sparse rows,
+tens of seconds per VERIFIED solve on a host CPU.
 
-This study solves the canonical 256-agent problem (scatter seed 7,
-same as benchmarks/swarm256_joint_tpu.json) at several phase-budget
-schedules — the measured budget dial of
-benchmarks/budget256_study_tpu.json — and gates EACH against the IPM
+This study solves the canonical 256-agent problem (scatter seed 7, as
+tools/large_swarm_joint.py) at several phase-budget schedules and
+gates EACH against the IPM
 optimum of ROTATING 4-agent best-response QPs (stride-spread batches,
 everyone else fixed at our solution).  The cheapest schedule whose
 worst margin stays <= the 1.25 gate bound licenses the fast 256-agent
 replan (qp/joint.budgets_for_swarm).
 
 Usage: python tools/oracle256_study.py [--cpu] [--budgets-list ...]
-Writes benchmarks/oracle256_tpu.json (or _cpu when --cpu).
+Writes benchmarks/oracle256_gpu.json (or _cpu when --cpu).
 """
 from __future__ import annotations
 
@@ -30,7 +27,11 @@ import time
 
 import numpy as np
 
-#: round-5 (VERDICT r4 weak #4): widened 4 -> 8 rotating batches
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+
+#: 8 rotating batches
 #: (32 of 256 agents covered by the rotation)
 ORACLE_BATCHES = (0, 9, 17, 26, 34, 43, 51, 60)   # of 64 batches
 
@@ -64,11 +65,8 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-    sys.path.insert(0, "/root/repo")
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import bench
     import swarm_simulator_tpu as sst
     from swarm_simulator_tpu.corridor.times import build_corridors
@@ -183,7 +181,7 @@ def main():
                oracle_batches=list(ORACLE_BATCHES), schedules=rows,
                licensed_budgets=licensed)
     path = args.out or ("benchmarks/oracle256_cpu.json" if args.cpu
-                        else "benchmarks/oracle256_tpu.json")
+                        else "benchmarks/oracle256_gpu.json")
     os.makedirs("benchmarks", exist_ok=True)
     with open(path, "w") as f:
         json.dump(out, f, indent=1)

@@ -1,5 +1,4 @@
-"""Isolate the f32 rung-inverse / f32-iteration precision wall
-(round-5, VERDICT r4 #1).
+"""Isolate the f32 rung-inverse / f32-iteration precision wall.
 
 Replans at 256 agents sit 1.8-3.9x above the rotating IPM
 best-response oracle at short budgets, and the round-4 probe fingered
@@ -37,7 +36,9 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):
@@ -96,7 +97,7 @@ def main():
 
     # ---- cold solve (production recipe) + corridor refresh -----------
     data32, param32 = assemble_as("float32")
-    full_ph = qjoint.production_phases(fused=False)
+    full_ph = qjoint.production_phases()
     op = nullspace.prepare_ns_np(data32, full_ph[0])
     x, info = nullspace.solve_ns_phases(
         jax.tree.map(jnp.asarray, data32), full_ph,
@@ -120,7 +121,7 @@ def main():
                 ctrl0.reshape(N, M * (n + 1), 3).transpose(0, 2, 1),
                 np.float32 if dtype == "float32" else np.float64))
         ph = qjoint.production_phases(budgets, base=full_ph[1],
-                                      kkt_refine=refine, fused=False)
+                                      kkt_refine=refine)
         t0 = time.perf_counter()
         if prep == "host":
             opa = jax.device_put(nullspace.prepare_ns_np(data, ph[0]))

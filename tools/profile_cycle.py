@@ -1,13 +1,18 @@
 """Profile the verified-cycle bench: host assemble vs device solve per round.
 
-Reuses bench.py's exact problem + settings so the TPU executable comes from
-the persistent compilation cache.
+Reuses bench.py's exact problem + settings so the device executable comes
+from the persistent compilation cache.
 """
+import os
 import dataclasses
 import sys
 import time
 
 import numpy as np
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):
@@ -18,11 +23,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
 
-    sys.path.insert(0, "/root/repo")
+    enable_compile_cache()
     import bench
     from swarm_simulator_tpu.parallel import seqbatch
     from swarm_simulator_tpu.qp import admm, assemble, convert

@@ -15,11 +15,16 @@ Usage: python tools/refresh_feas_probe.py [--agents 16]
 """
 from __future__ import annotations
 
+import os
 import argparse
 import sys
 import time
 
 import numpy as np
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):
@@ -35,8 +40,6 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
-
-    sys.path.insert(0, "/root/repo")
     import swarm_simulator_tpu as sst
     from swarm_simulator_tpu.corridor.rsfc import build_rsfc
     from swarm_simulator_tpu.corridor.times import build_corridors

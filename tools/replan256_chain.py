@@ -1,7 +1,7 @@
 """Replan CHAIN at 256 agents: STATE-warm vs x0-warm across corridor
 refreshes, every round judged by the rotating IPM best-response oracle.
 
-Round-4 finding (benchmarks/replan256_oracle_tpu.json): every short
+Finding (tools/replan256_validate.py): every short
 x0-warm replan arm sits 2-4x above the rotating best-response oracle
 on the REFRESHED corridors, despite passing the full safety gate.  A
 corridor refresh (RSFC planes rebuilt from the flown knots — the joint
@@ -41,9 +41,9 @@ attribution is REFUTED — at equal short budgets, f64 END-TO-END
 The wall is ITERATION BUDGET on the refreshed problem: 300-iter arms
 sit at 1.33, 900-iter arms (full budgets, or short + one polish
 extension) reach 1.04-1.12 in every dtype/prep combination.  Hence
-the round-5 arms scan the budget/schedule frontier, not precision.
+the arms scan the budget/schedule frontier, not precision.
 
-Writes benchmarks/replan256_chain_tpu.json.
+Writes benchmarks/replan256_chain_gpu.json.
 Usage: python tools/replan256_chain.py [--cpu --agents 16 --rounds 1]
 """
 from __future__ import annotations
@@ -56,6 +56,10 @@ import sys
 import time
 
 import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
 
 ARMS = (("state", (50, 200, 50), 0, 0),
         ("state", (0, 250, 50), 0, 0),
@@ -100,19 +104,16 @@ def main():
                          "optimum; measures its cost and what the "
                          "rotating best-response margins become when "
                          "the solution IS the optimum")
-    ap.add_argument("--out", default="benchmarks/replan256_chain_tpu.json")
+    ap.add_argument("--out", default="benchmarks/replan256_chain_gpu.json")
     args = ap.parse_args()
     arms = parse_arms(args.arms) if args.arms else ARMS
 
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
-
-    sys.path.insert(0, "/root/repo")
     import bench
     import swarm_simulator_tpu as sst
     from swarm_simulator_tpu.corridor.rsfc import build_rsfc
@@ -158,11 +159,8 @@ def main():
         return ok, m, margins, worst
 
     # ---- cold: full budgets + polish, device prep, STATE captured ----
-    thomas = qjoint.select_kkt_path(
-        qjoint.production_phases(), mission.qn, M,
-        len(np.asarray(plan.pair_idx)), param.phi)
     cold_ph = qjoint.production_phases(
-        qjoint.budgets_for_swarm(N), base=thomas[1], kkt_refine=1)
+        qjoint.budgets_for_swarm(N), kkt_refine=1)
     pol_ph = qjoint.escalation_phases(cold_ph)
 
     data0, dummy0 = qjoint.assemble_joint(plan, mission, param)
@@ -220,8 +218,7 @@ def main():
     # ---- per-arm replan chains ---------------------------------------
     arm_rows = []
     for warm, budgets, refine, round_polish in arms:
-        rph = qjoint.production_phases(budgets, base=thomas[1],
-                                       kkt_refine=refine)
+        rph = qjoint.production_phases(budgets, kkt_refine=refine)
         pol_rph = qjoint.escalation_phases(rph)
         prep_jit = jax.jit(lambda d, ph=rph: nullspace.prepare_ns(d, ph[0]))
         solve_w = jax.jit(lambda d, o, st, ph=rph: nullspace.solve_ns_phases(

@@ -1,15 +1,14 @@
-"""Oracle-licensed FAST 256-agent replan (round-4 ask #2, second half).
+"""Oracle-licensed FAST 256-agent replan.
 
 Production flow at the top rung: cold solve + polish rounds reach the
-oracle standard (benchmarks/oracle256_polish_tpu.json: worst rotating-
-batch margin 1.242); the streaming replanner then refreshes the RSFC
+oracle standard (tools/oracle256_study.py); the streaming replanner then refreshes the RSFC
 corridors from the flown solution and re-solves WARM.  This script
 measures the replan cycle (device prep + solve) at short budget
 schedules, with and without kkt_refine, and gates EACH replanned
 solution against the rotating IPM best-response oracle — licensing the
 cheapest <5 s cycle whose worst margin stays <= 1.25.
 
-Writes benchmarks/replan256_oracle_tpu.json.
+Writes benchmarks/replan256_oracle_gpu.json.
 Usage: python tools/replan256_validate.py [--cpu]
 """
 from __future__ import annotations
@@ -23,6 +22,10 @@ import time
 
 import numpy as np
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+
 ORACLE_BATCHES = (0, 17, 34, 51)
 ARMS = (((50, 200, 50), 0), ((50, 200, 50), 1), ((100, 300, 100), 0))
 
@@ -35,18 +38,15 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--polish", type=int, default=4)
-    ap.add_argument("--out", default="benchmarks/replan256_oracle_tpu.json")
+    ap.add_argument("--out", default="benchmarks/replan256_oracle_gpu.json")
     args = ap.parse_args()
 
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
-
-    sys.path.insert(0, "/root/repo")
     import bench
     import swarm_simulator_tpu as sst
     from swarm_simulator_tpu.corridor.rsfc import build_rsfc
@@ -106,14 +106,9 @@ def main():
                 f"({dt:.0f}s IPM)")
         return ok, m, margins
 
-    thomas = qjoint.select_kkt_path(
-        qjoint.production_phases(), mission.qn, M,
-        len(np.asarray(plan.pair_idx)), param.phi)
-
     rows = []
     for budgets, refine in ARMS:
-        rph = qjoint.production_phases(budgets, base=thomas[1],
-                                       kkt_refine=refine)
+        rph = qjoint.production_phases(budgets, kkt_refine=refine)
         prep_jit = jax.jit(lambda d, ph=rph: nullspace.prepare_ns(d, ph[0]))
         solve_jit = jax.jit(
             lambda d, o, ph=rph: nullspace.solve_ns_phases(d, ph, op=o))

@@ -1,14 +1,14 @@
 """Corridor-refresh replan cost study: attack the host-f64 prep wall.
 
-Round-2 verdict: the true replanning cycle is PREP-dominated — every
-corridor refresh re-pays 2.5-4.6 s of host-f64 KKT prep at 64 agents
-(~8 min at 256) because the rung inventory embeds the pair-normal
+The true replanning cycle is PREP-dominated — every corridor refresh
+re-pays seconds of host-f64 KKT prep at 64 agents (minutes at 256)
+because the rung inventory embeds the pair-normal
 coupling (tools/staleop_study.py: the STALE inventory fails the gate
 even with kkt_refine PCG).
 
 Hypothesis tested here: the staleop failure was about WRONG normals,
 not low precision.  Preparing the inventory ON DEVICE in f32 for the
-FRESH normals (prepare_ns: one vmapped Schur chain on the MXU,
+FRESH normals (prepare_ns: one batched Schur chain on the device,
 Newton-refined inverses) gives a preconditioner with the RIGHT
 coupling whose only defect is f32 accuracy — and (a) it may pass the
 gate directly on a warm-started replan, or (b) kkt_refine=1 PCG
@@ -27,6 +27,7 @@ Usage: python tools/replan_study.py [--seed 0] [--cpu] [--budgets 200,600,100]
 """
 from __future__ import annotations
 
+import os
 import argparse
 import dataclasses
 import json
@@ -34,6 +35,10 @@ import sys
 import time
 
 import numpy as np
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):
@@ -50,9 +55,8 @@ def main():
     import jax
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
 
     sys.path.insert(0, ".")
@@ -119,12 +123,11 @@ def main():
                             obj=float(np.asarray(info1.obj)),
                             **(extra or {}))
 
-    def ladder_phases(rho_min, rho_max, n_rungs, bdg, fused, refine=0):
+    def ladder_phases(rho_min, rho_max, n_rungs, bdg, refine=0):
         base = dataclasses.replace(
             joint.production_settings(), rho_min=rho_min, rho_max=rho_max,
             n_rungs=n_rungs)
-        ph = joint.production_phases(bdg, base=base, fused=fused,
-                                     kkt_refine=refine)
+        ph = joint.production_phases(bdg, base=base, kkt_refine=refine)
         # fences must live inside the shrunken ladder
         return (dataclasses.replace(ph[0], rho_lo=max(1e-3, rho_min)),
                 ph[1],
@@ -142,19 +145,19 @@ def main():
     # proportionally less Schur-chain prep and transfer
     for (rmin, rmax, nr, bdg) in ((1e-4, 1e-2, 3, budgets),
                                   (1e-3, 1e-2, 2, budgets)):
-        ph_s = ladder_phases(rmin, rmax, nr, bdg, fused=None)
+        ph_s = ladder_phases(rmin, rmax, nr, bdg)
         t0 = time.perf_counter()
         op_s = nullspace.prepare_ns_np(data1, ph_s[0])
         op_s_dev = jax.device_put(op_s)
         run(f"f64host-{nr}rung", op_s_dev, ph_s,
             time.perf_counter() - t0, extra=dict(ladder=[rmin, rmax, nr]))
 
-    # (c) on-device f32 prep (FLAT layout so kkt_refine can run), both
+    # (c) on-device f32 prep, both
     # the full ladder and a better-conditioned shrunken one (the rho=
     # 1e-5 rung's f32 Schur chain produced NaNs on the first attempt)
     for (rmin, rmax, nr, bdg) in ((1e-5, 1e-2, 5, budgets),
                                   (1e-4, 1e-2, 3, budgets)):
-        ph_flat = ladder_phases(rmin, rmax, nr, bdg, fused=False)
+        ph_flat = ladder_phases(rmin, rmax, nr, bdg)
         prep_dev = jax.jit(lambda d, _s=ph_flat[0]:
                            nullspace.prepare_ns(d, _s))
         t0 = time.perf_counter()
@@ -172,8 +175,7 @@ def main():
         for refine in (0, 1):
             tag = f"f32dev-{nr}rung" + (f"+r{refine}" if refine else "")
             run(tag, op_b,
-                ladder_phases(rmin, rmax, nr, bdg, fused=False,
-                              refine=refine),
+                ladder_phases(rmin, rmax, nr, bdg, refine=refine),
                 prep_b_s, extra=dict(ladder=[rmin, rmax, nr]))
 
     print(json.dumps(results, indent=1))

@@ -7,7 +7,7 @@ can shrink to those rungs and prep drops proportionally.
 
 Method: re-run the production phases in check_every-sized chunks via
 _iterate_ns(init=state, max_iter=check_every), recording the carried
-rho index after every chunk — the walk is IDENTICAL to the fused solve
+rho index after every chunk — the walk is IDENTICAL to the production solve
 (rung updates only happen at chunk boundaries) except that early
 termination is ignored (the production budgets run to completion on
 these problems anyway; the final objective is printed to confirm).
@@ -16,12 +16,17 @@ Usage: python tools/rung_usage.py [--seeds 0,1,2,3,4]
 """
 from __future__ import annotations
 
+import os
 import argparse
 import dataclasses
 import sys
 from collections import Counter
 
 import numpy as np
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):
@@ -35,9 +40,8 @@ def main():
 
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
 
     sys.path.insert(0, ".")

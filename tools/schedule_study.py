@@ -8,18 +8,23 @@ This sweep finds the new knee: smallest total budget with ALL seeds
 inside the 1.25 objective-margin gate with headroom.
 
 CPU (algorithmic study; the bench re-verifies the chosen schedule on
-TPU across the same seeds before any timing).
+the device across the same seeds before any timing).
 
 Usage: python tools/schedule_study.py [--seeds 0,1,2,3,4]
 """
 from __future__ import annotations
 
+import os
 import argparse
 import dataclasses
 import sys
 import time
 
 import numpy as np
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):
@@ -41,15 +46,15 @@ SCHEDULES = [(200, 600, 100), (200, 600, 100, 50, 5),
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", default="0,1,2,3,4")
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--device", action="store_true",
+                    help="run on the default accelerator, not the CPU")
     args = ap.parse_args()
 
     import jax
-    if not args.tpu:
+    if not args.device:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
 
     sys.path.insert(0, ".")

@@ -1,7 +1,6 @@
 """Virtual-mesh scaling of the SHARDED joint solve (qp/nullspace_shard).
 
-Two measurements on the xla_force_host_platform_device_count CPU mesh
-(the only multi-device surface in this environment — 1 real TPU chip):
+Two measurements on the xla_force_host_platform_device_count CPU mesh:
 
 A. 64-agent forest, full production budgets, n = 1/2/4/8 shards:
    gate-checked solution + warm solve time per n.  CAVEAT for reading
@@ -15,9 +14,8 @@ A. 64-agent forest, full production budgets, n = 1/2/4/8 shards:
 B. --full256: the BASELINE ladder top rung as ONE sharded QP —
    256 agents, 32,640 pairs, 5-rung host-f64 prep (~7.5 GB f32 pivot
    inventory, ~0.94 GB/device at n=8), full budgets, FULL safety gate.
-   The round-2 single-device TPU artifact (benchmarks/
-   swarm256_joint_tpu.json) is the quality reference: same seed, same
-   recipe -> same problem (M=72), objective compared against its 8.104.
+   tools/large_swarm_joint.py's single-device solve is the quality
+   reference: same seed, same recipe -> same problem (M=72).
 
 Usage:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -25,6 +23,7 @@ Usage:
 """
 from __future__ import annotations
 
+import os
 import argparse
 import dataclasses
 import json
@@ -32,6 +31,10 @@ import sys
 import time
 
 import numpy as np
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):
@@ -48,9 +51,8 @@ def main():
 
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     from jax.sharding import Mesh
 
     sys.path.insert(0, ".")
@@ -64,7 +66,7 @@ def main():
     # ---- A: 64-agent curve ------------------------------------------
     plan, mission, param = bench.build_problem(seed=0)
     data, _ = bench.assemble_joint(plan, mission, param)
-    phases = qjoint.production_phases(fused=False)
+    phases = qjoint.production_phases()
     t0 = time.perf_counter()
     op = nullspace.prepare_ns_np(data, phases[0])
     prep_s = time.perf_counter() - t0
@@ -178,8 +180,7 @@ def main():
             ratio=round(m["ratio"], 4), box_viol=m["box_viol"],
             obj=round(obj[1], 4),
             inv_gb_total=round(inv256 / 1e9, 2),
-            inv_gb_per_device=round(inv256 / n / 1e9, 3),
-            obj_ref_tpu_single=8.1041)
+            inv_gb_per_device=round(inv256 / n / 1e9, 3))
 
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)

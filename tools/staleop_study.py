@@ -2,7 +2,7 @@
 
 The reference's outer iteration (rbp_planner.hpp:140-204) rebuilds the
 relative corridors from the latest trajectories and re-solves.  In the
-joint TPU path the expensive host-f64 KKT rung inventory (prepare_ns_np)
+joint device path the expensive host-f64 KKT rung inventory (prepare_ns_np)
 embeds the pair-normal coupling C = A^T A, so a corridor refresh
 nominally invalidates it.  This study measures whether a replan can keep
 the STALE inventory (refresh_ns_op_np: only x_pin/g recomputed — an
@@ -24,12 +24,17 @@ Usage: python tools/staleop_study.py [--seeds 0,1,2,3,4]
 """
 from __future__ import annotations
 
+import os
 import argparse
 import dataclasses
 import sys
 import time
 
 import numpy as np
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):
@@ -56,15 +61,15 @@ def knots_from_ctrl(ctrl: np.ndarray) -> np.ndarray:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", default="0,1,2,3,4")
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--device", action="store_true",
+                    help="run on the default accelerator, not the CPU")
     args = ap.parse_args()
 
     import jax
-    if not args.tpu:
+    if not args.device:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
 
     sys.path.insert(0, ".")

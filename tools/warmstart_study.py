@@ -11,16 +11,21 @@ so the polish phase may need far fewer of its 1200 iterations.
 Runs on CPU by default (algorithmic question, not a platform one);
 gate + objective margin vs the f64 IPM best-response per variant.
 
-Usage: python tools/warmstart_study.py [--seed 4] [--tpu]
+Usage: python tools/warmstart_study.py [--seed 4] [--device]
 """
 from __future__ import annotations
 
+import os
 import argparse
 import dataclasses
 import sys
 import time
 
 import numpy as np
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
 def log(*a):
@@ -30,15 +35,15 @@ def log(*a):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=4)
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--device", action="store_true",
+                    help="run on the default accelerator, not the CPU")
     args = ap.parse_args()
 
     import jax
-    if not args.tpu:
+    if not args.device:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from swarm_simulator_tpu.utils.runtime import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
 
     sys.path.insert(0, ".")
